@@ -1,6 +1,6 @@
-"""jpeg_encoder_tpu: a TPU-native baseline JPEG (JFIF) encoder.
+"""jpeg_encoder_tpu: a baseline JPEG (JFIF) encoder on JAX accelerators.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 uriGrif/jpeg-encoder reference (Rust BMP -> baseline JPEG CLI):
 
 * RGB -> YCbCr color conversion (BT.601 constants, truncating casts)

@@ -4,8 +4,9 @@ Feature-parity with the reference CLI (arguments.rs:4-67, main.rs:8-68):
 `--image` (required, must end in .bmp), `--output` (defaults to the input
 path with a .jpeg suffix), `--subsampling-ratio {4:4:4,4:2:2,4:2:0}`
 (default 4:2:0), `--dct-algorithm {real-dct,bin-dct}` (default real-dct),
-plus TPU-native extensions: multi-image batch input (globs), fast-DCT mode,
-and stage timing.
+plus extensions: multi-image batch input (globs), datasets, fast-DCT mode,
+quality scaling, optimized Huffman tables, restart markers, band tiling
+over several devices, and stage timing.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from jpeg_encoder_tpu.config import (
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="jpeg-encoder-tpu",
-        description="TPU-native BMP to baseline JPEG (JFIF) encoder",
+        description="BMP to baseline JPEG (JFIF) encoder on JAX devices",
     )
     parser.add_argument(
         "-i", "--image", action="append", default=None,
@@ -99,8 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--fast-dct", action="store_true",
-        help="use the MXU matmul RealDCT (fastest; quantized coefficients may "
-        "differ from the scalar reference in ~1e-5 of values)",
+        help="use the matmul RealDCT (fastest; quantized coefficients may "
+        "differ from the scalar reference in ~1e-5 of values, by one step)",
     )
     parser.add_argument(
         "--devices", type=int, default=0, metavar="N",
@@ -110,8 +111,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--tile-bands", action="store_true",
         help="single-image mode: shard the image's MCU-row bands across "
-        "the device mesh (DC predictors chained over ICI), instead of "
-        "encoding it on one device",
+        "the device mesh (DC predictors chained between devices), instead "
+        "of encoding it on one device",
     )
     parser.add_argument(
         "--timing", action="store_true", help="print per-image timing as JSON"
@@ -132,7 +133,7 @@ def _maybe_trace(trace_dir: str):
     """jax.profiler trace context when --trace is given (else a no-op).
 
     The reference's only observability is println! stage banners
-    (main.rs:16-67); the TPU-native equivalent is a real profiler trace of
+    (main.rs:16-67); the equivalent here is a real profiler trace of
     the device program plus the --timing JSON counters.
     """
     import contextlib
@@ -321,8 +322,8 @@ def _run_batch(inputs: list[str], args, config: EncoderConfig) -> int:
     Images load through the native threaded BMP loader and encode as
     chunked, sharded device batches (parallel/stream.py + batch.py) —
     BMP decode of chunk k+1 and file writes of chunk k-1 run concurrently
-    with chunk k's device program. On a single chip each dispatch is a
-    vmapped program; on a pod slice each chip takes a slice of the batch.
+    with chunk k's device program. On a single device each dispatch is a
+    vmapped program; on several each device takes a slice of the batch.
     """
     import os
 

@@ -165,7 +165,7 @@ class EncoderConfig:
     dct_algorithm: DctAlgorithm = DctAlgorithm.REAL_DCT
     # RealDCT flavor. False (default) = reference-parity accumulation order:
     # quantized coefficients are bit-identical to the scalar reference.
-    # True = single (N, 64) @ (64, 64) MXU matmul: same math, different f32
+    # True = single (N, 64) @ (64, 64) f32 matmul: same math, different f32
     # summation order; ~1e-5 of coefficients land one quantization step away
     # from the reference (visually and PSNR-wise indistinguishable).
     fast_dct: bool = False
@@ -189,16 +189,6 @@ class EncoderConfig:
     # to None. Extension beyond the reference (its tables are fixed;
     # jpeg_theory.md:162 lists quality scaling as unimplemented).
     quality: int | None = None
-    # Run the RealDCT default path through the transposed-chain Pallas
-    # kernel (kernels/dct_pallas.real_dct_quant_planes_zigzag_pallas_t)
-    # instead of the XLA ops chain. Bit-identical output. None = auto
-    # (currently: always the kernel): the Pallas chain's cost is stable
-    # (~80% of VPU ideal) while the XLA chain fusion's emitter windowing
-    # is bistable per program structure; with in-kernel DC differencing
-    # it measures 1529/1146/801 vs 1527/960/753 Mpix/s at
-    # 4:2:0/4:2:2/4:4:4 (tools/exp_dct_chain_t.py, chip_session.log r2).
-    # False forces the XLA ordered chain (the bit-exactness oracle path).
-    transposed_dct: bool | None = None
     # Two-pass optimized Huffman coding (libjpeg's -optimize analog): a
     # statistics pass histograms the scan's symbols on device, optimal
     # per-image canonical tables are built host-side (tables.optimal_spec,

@@ -1,8 +1,8 @@
 """RGB -> YCbCr color conversion (BT.601 / JFIF constants).
 
-TPU-native formulation: one vectorized elementwise pass over the whole image
-(VPU work, fused by XLA with the surrounding pad/reshape), instead of the
-reference's per-pixel scalar loop (colorspace.rs:5-15, jpeg_image.rs:121-134).
+One vectorized elementwise pass over the whole image, fused by XLA with the
+surrounding pad/reshape, instead of the reference's per-pixel scalar loop
+(colorspace.rs:5-15, jpeg_image.rs:121-134).
 
 Numerics contract: float32 with per-operation rounding and the same
 association order as the reference, final cast truncating toward zero with
@@ -15,25 +15,20 @@ hits the exact tie 164.99999237 and rounds-to-even to 165.0; the FMA's
 exact product steers it to 164.99998 — truncating to 164). Rust never
 contracts (LLVM default fp-contract=off), so the oracle is ground truth.
 
-Backend status, measured exhaustively over all 2^24 RGB triples
-(tools/hw_parity_sweep.py --color):
-* TPU: 0 mismatches with the plain multiply chain — bit-exact.
-* XLA:CPU: the multiply chain flipped ~3.5k triples (2e-4) by one; the CPU
-  backend forms FMAs even across jax.lax.optimization_barrier /
-  reduce_precision (both were tried and are folded away). Non-TPU backends
-  therefore use a contraction-proof formulation: each per-channel PRODUCT
-  comes from a precomputed 256-entry f32 table (NumPy computes the exact
-  per-op-rounded values host-side), so the traced program contains only
-  additions — and an add chain has no mul to contract with, making the
-  result per-op-rounded on any IEEE backend. Verified exhaustively vs the
-  oracle on CPU (tests/test_ops.py::test_color_exhaustive_cpu).
+XLA:CPU forms such FMAs (a plain multiply chain flipped ~3.5k of the 2^24
+triples by one), so the traced program contains no multiplication at all:
+each per-channel PRODUCT comes from a precomputed 256-entry f32 table
+(NumPy computes the exact per-op-rounded values host-side), and an add
+chain has no multiply to contract with. Verified exhaustively against the
+oracle over all 2^24 RGB triples on the CPU backend
+(tests/test_ops.py::test_color_exhaustive_cpu) and on an NVIDIA H100
+(chip_smoke.py, colour phase: 0 mismatches).
 """
 
 from __future__ import annotations
 
 import functools
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -68,21 +63,11 @@ def _to_u8(x: jnp.ndarray) -> jnp.ndarray:
 
 
 def rgb_to_ycbcr(rgb: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """(..., 3) uint8 RGB -> three uint8 planes (y, cb, cr)."""
-    if jax.default_backend() == "tpu":
-        # Plain multiply chain: fuses into the surrounding pipeline and is
-        # measured bit-exact on TPU (no FMA contraction observed across the
-        # 2^24 sweep with per-op association preserved).
-        r = rgb[..., 0].astype(_F)
-        g = rgb[..., 1].astype(_F)
-        b = rgb[..., 2].astype(_F)
-        y = (_F(0.299) * r + _F(0.587) * g) + _F(0.114) * b
-        cb = ((_F(128.0) - _F(0.168736) * r) - _F(0.331264) * g) + _F(0.5) * b
-        cr = ((_F(128.0) + _F(0.5) * r) - _F(0.418688) * g) - _F(0.081312) * b
-        return _to_u8(y), _to_u8(cb), _to_u8(cr)
+    """(..., 3) uint8 RGB -> three uint8 planes (y, cb, cr).
 
-    # Contraction-proof path (XLA:CPU and anything else): products via
-    # tables, adds in the traced program — nothing for an FMA to merge.
+    Products come from tables, adds run in the traced program: nothing
+    for an FMA to merge (see the module docstring).
+    """
     y_r, y_g, y_b, cb_r, cb_g, cb_b, cr_r, cr_g, cr_b = (
         jnp.asarray(t) for t in _channel_luts()
     )

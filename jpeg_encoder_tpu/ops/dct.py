@@ -1,24 +1,38 @@
 """Forward 8x8 DCT variants + quantization over block batches.
 
-TPU-first formulation of the RealDCT: the separable 2-D DCT of an 8x8 block
-is a single 64x64 matmul over the flattened block,
+The separable 2-D DCT of an 8x8 block is a single 64x64 matmul over the
+flattened block,
 
     coeff[uv] = sum_xy  shifted[xy] * (scale[u,v] * B[u,x] * B[v,y])
 
 i.e. the Kronecker product of the 1-D cosine basis with the alpha
 normalization folded in. A batch of blocks is then one (N, 64) @ (64, 64)
-f32 matmul — dense MXU work — replacing the reference's per-block quadruple
-loop with 8,192 cosine evaluations (dct_quant.rs:189-234). The basis matrix
-is a compile-time constant built with the reference's exact f32 cosine
-arguments, so only the accumulation order differs from the scalar loop; the
-quantization division (f32 divide by the Annex-K table, truncate toward
-zero) absorbs that difference in all but ~1e-7 of coefficients (measured; an
-`exact` mode with reference accumulation order exists for verification).
+f32 matmul, replacing the reference's per-block quadruple loop with 8,192
+cosine evaluations (dct_quant.rs:189-234). The basis matrix is a
+compile-time constant built with the reference's exact f32 cosine
+arguments, so only the accumulation order differs from the scalar loop:
+that is the `--fast-dct` mode. The default is the ordered chain
+(real_dct_quant_ordered), which keeps the reference's accumulation order
+and is bit-exact.
 
 The binDCT path (dct_quant.rs:67-187, after the Tran intDCT paper's
-binDCT-C) is integer shift/add lifting — pure VPU work, vectorized over the
-whole block batch at once. The reference's omission of output de-scaling is
+binDCT-C) is integer shift/add lifting, vectorized over the whole block
+batch at once. The reference's omission of output de-scaling is
 reproduced (coefficient parity beats spec fidelity for this port target).
+
+Two compiler rewrites would break bit parity, and the code here is shaped
+so that neither can apply:
+
+* The quotient by the quantization step must be the correctly rounded
+  f32 quotient before truncation. The GPU backend divides approximately,
+  and XLA replaces a division by a constant with a multiplication by the
+  rounded reciprocal; either moved RealDCT coefficients one step (4 in
+  6.7e7 on an H100 before the fix). _quant_divide corrects the backend's
+  quotient with exact integer-valued comparisons.
+* XLA:CPU contracts `acc + p * b` into one FMA, which rounds once where
+  the reference rounds twice (10 coefficients in 4.2e6 moved). The
+  ordered chain adds each product through a select
+  (real_dct_quant_ordered), which no backend contracts across.
 """
 
 from __future__ import annotations
@@ -32,6 +46,8 @@ import numpy as np
 from jpeg_encoder_tpu.config import DctAlgorithm
 
 _F32 = np.float32
+# Above any partial sum of the ordered chain (see real_dct_quant_ordered).
+_ACC_BOUND = _F32(2.0**20)
 
 
 @functools.cache
@@ -72,6 +88,43 @@ def _trunc_div_int(values: jnp.ndarray, divisor: jnp.ndarray) -> jnp.ndarray:
     return jnp.sign(values) * (jnp.abs(values) // divisor)
 
 
+def _pow2(exponent: jnp.ndarray) -> jnp.ndarray:
+    """2.0 ** exponent as f32 for int32 exponents in the normal range."""
+    return jax.lax.bitcast_convert_type(
+        (exponent + 127) << 23, jnp.float32
+    )
+
+
+def _quant_divide(values: jnp.ndarray, q_rows: jnp.ndarray) -> jnp.ndarray:
+    """trunc(values / q_rows) for f32 values, with the quotient rounded to
+    f32 first exactly as an IEEE division rounds it (Rust `(x / q) as i16`).
+
+    q_rows holds positive integers (quantization steps). The backend's
+    division is only a first guess: the GPU backend divides approximately
+    (about a quarter of f32 quotients differ in the last bits), and XLA
+    replaces a division by a constant with a multiplication by the rounded
+    reciprocal on every backend. The guess is then made exact with exact
+    operations only: t = floor(|x| / q) is corrected by comparing |x|
+    with the integer products q * t and q * (t + 1), which are exact in
+    f32 while they stay below 2^24; the correctly rounded quotient reaches
+    t + 1 exactly when |x| lies within half a float spacing (just below
+    t + 1, scaled by q) of q * (t + 1), ties rounding up to the even
+    integer. Every product and difference involved is exact, so the
+    result does not depend on how a backend rounds or contracts them.
+    """
+    a = jnp.abs(values)
+    t = jnp.floor(a / q_rows)
+    t = jnp.where(
+        q_rows * (t + 1) <= a, t + 1, jnp.where(q_rows * t > a, t - 1, t)
+    )
+    ti = t.astype(jnp.int32)
+    # Exponent of the float spacing just below the integer t + 1.
+    below = jnp.where(ti > 0, 31 - jax.lax.clz(ti), -1) - 23
+    half_gap = q_rows * _pow2(below - 1)
+    rounds_up = q_rows * (t + 1) - a <= half_gap
+    return jnp.sign(values) * (t + rounds_up)
+
+
 def _default_q_rows(quant: np.ndarray, zigzag_out: bool) -> jnp.ndarray:
     """(1, 64) f32 quant row, zigzag-permuted when the outputs are."""
     q = quant.reshape(64).astype(np.float32)
@@ -89,8 +142,8 @@ def real_dct_quant(
     """(N, 64) uint8 blocks -> (N, 64) int16 quantized coefficients.
 
     Level shift, 64x64 Kronecker-basis matmul (f32, HIGHEST precision so the
-    MXU does not downcast inputs to bf16), f32 divide by the quant table,
-    truncate toward zero.
+    product is not computed in a reduced-precision format such as TF32),
+    f32 divide by the quant table, truncate toward zero.
     """
     shifted = level_shift(blocks_u8).astype(jnp.float32)
     k = dct_kron_matrix()
@@ -105,16 +158,7 @@ def real_dct_quant(
         preferred_element_type=jnp.float32,
         precision=jax.lax.Precision.HIGHEST,
     )
-    return jnp.trunc(coeffs / q_rows).astype(jnp.int16)
-
-
-# A "guarded" RealDCT (MXU Kronecker matmul + sound per-coefficient error
-# radius + exact-chain repair of boundary-risk blocks) was built and measured
-# in rounds 1-2 (tools/chip_session.log): bit-identical to the ordered chain,
-# but the repair machinery (one-hot matmul compaction; a gather rework was 2x
-# worse) cost more than the chain it avoided on v5e, and the transposed-layout
-# Pallas chain (kernels/dct_pallas.py) has since beaten both. Removed; see
-# chip_session.log r1 sections 2-4 and r3 for the measurements.
+    return _quant_divide(coeffs, q_rows).astype(jnp.int16)
 
 
 def dct_quantize_planes(
@@ -127,8 +171,8 @@ def dct_quantize_planes(
     bin_dct_descale: bool = False,
     quality: int | None = None,
 ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """All three planes through ONE transform chain (measured ~1 ms/batch
-    faster than three separate fusions at 1080p).
+    """All three planes through ONE transform chain (one fusion instead of
+    three).
 
     The quantization table is the only per-plane difference, and it is
     elementwise: select the luma/chroma row per block row (Annex-K, or
@@ -165,7 +209,7 @@ def dct_quantize_planes(
         q = per_row_q(q_luma, q_chroma, np.float32)
         s = jnp.asarray(bindct_descale_2d())[None, :]
         work = _bindct_transform(allb)
-        out = jnp.trunc(work.astype(jnp.float32) * s / q).astype(jnp.int16)
+        out = _quant_divide(work.astype(jnp.float32) * s, q).astype(jnp.int16)
         if zigzag_out:
             out = out[:, tables.ZIGZAG_ORDER]
     else:
@@ -185,16 +229,14 @@ def real_dct_quant_ordered(
 
     64 f32 accumulation steps in (x, y) scan order with per-term association
     (px * cos_u) * cos_v — bit-identical quantized coefficients to
-    dct_quant.rs:217-225 (verified against the oracle). Still fast on TPU:
-    XLA fuses the whole chain into one pass over the block batch
-    (~192 VPU flops/pixel), so this is nowhere near the pipeline bottleneck;
-    the MXU matmul variant above exists for when raw throughput matters more
-    than the last ~1e-5 of coefficient parity.
+    dct_quant.rs:217-225 (verified against the oracle). XLA fuses the whole
+    chain into one elementwise pass over the block batch (~192 flops per
+    coefficient); the matmul variant above exists for when raw throughput
+    matters more than the last ~1e-5 of coefficient parity.
     """
     # Flat (N, 64) formulation: step k = (x, y) contributes
     # (px * basis[u, x]) * basis[v, y] to every output lane uv — the
-    # reference's association order, with no (..., 8, 8) trailing shapes
-    # (those pad 16x under TPU (8, 128) tiling and ballooned HBM temps).
+    # reference's association order.
     basis = dct_basis_f32()
     u_of = np.arange(64) // 8
     v_of = np.arange(64) % 8
@@ -212,16 +254,22 @@ def real_dct_quant_ordered(
     shifted = level_shift(blocks_u8).astype(jnp.float32).reshape(-1, 64)
     acc = jnp.zeros_like(shifted)
     for k in range(64):
-        acc = acc + (shifted[:, k : k + 1] * a_steps[k : k + 1, :]) * (
+        term = (shifted[:, k : k + 1] * a_steps[k : k + 1, :]) * (
             b_steps[k : k + 1, :]
         )
+        # The select keeps the product a separately rounded value: a
+        # backend that contracts mul + add into an FMA (XLA:CPU does)
+        # cannot contract across it. It always picks the term, since each
+        # |term| <= 128 keeps |acc| <= 8192. A select on the pixel instead
+        # of on acc cost ~1.8x the whole 1080p encode on an H100.
+        acc = acc + jnp.where(acc > _ACC_BOUND, 0.0, term)
     inv_sqrt2 = _F32(1.0) / _F32(np.sqrt(2.0))
     alpha = np.where(np.arange(8) == 0, inv_sqrt2, _F32(1.0)).astype(_F32)
     scale = ((_F32(0.25) * alpha[u_of]) * alpha[v_of]).astype(_F32)
     if q_rows is None:
         q_rows = _default_q_rows(quant, zigzag_out)
-    coeffs = (jnp.asarray(scale)[None, :] * acc) / q_rows
-    return jnp.trunc(coeffs).astype(jnp.int16)
+    coeffs = _quant_divide(jnp.asarray(scale)[None, :] * acc, q_rows)
+    return coeffs.astype(jnp.int16)
 
 
 def _bindct_lifting_1d(x: list[jnp.ndarray]) -> list[jnp.ndarray]:
@@ -348,29 +396,6 @@ def bin_dct_quant(
     if descale:
         s = jnp.asarray(bindct_descale_2d())[None, :]
         q = jnp.asarray(quant.reshape(64).astype(np.float32))[None, :]
-        return jnp.trunc(work.astype(jnp.float32) * s / q).astype(jnp.int16)
+        return _quant_divide(work.astype(jnp.float32) * s, q).astype(jnp.int16)
     q = jnp.asarray(quant.reshape(64).astype(np.int32))
     return _trunc_div_int(work, q).astype(jnp.int16)
-
-
-def dct_quantize(
-    blocks_u8: jnp.ndarray,
-    quant: np.ndarray,
-    algorithm: DctAlgorithm,
-    fast_dct: bool = False,
-    zigzag_out: bool = False,
-    bin_dct_descale: bool = False,
-) -> jnp.ndarray:
-    """zigzag_out folds the zigzag permutation into the transform's
-    per-lane constants (RealDCT) or applies it to the result (binDCT),
-    sparing the scan encoder its lane gather."""
-    if algorithm == DctAlgorithm.REAL_DCT:
-        if fast_dct:
-            return real_dct_quant(blocks_u8, quant, zigzag_out)
-        return real_dct_quant_ordered(blocks_u8, quant, zigzag_out)
-    out = bin_dct_quant(blocks_u8, quant, descale=bin_dct_descale)
-    if zigzag_out:
-        from jpeg_encoder_tpu import tables
-
-        out = out[:, tables.ZIGZAG_ORDER]
-    return out

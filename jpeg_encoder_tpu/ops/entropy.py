@@ -2,7 +2,7 @@
 
 The reference encoder streams blocks through three running DC predictors and
 a single append-only bit vector (entropy_coding.rs:16-124), which serializes
-the entire stage. On TPU the same bitstream is produced with no sequential
+the entire stage. Here the same bitstream is produced with no sequential
 dependency at all:
 
 1. every block's DC value exists after the DCT, so the "running predictor"
@@ -12,9 +12,10 @@ dependency at all:
    every block independently knows what it must emit;
 3. every emission slot's Huffman code is a table gather, giving a
    (bits, length) pair per slot;
-4. a single exclusive scan over all slot lengths yields each slot's absolute
-   bit offset, and a disjoint-bit scatter-add packs everything into u32
-   words. Bit ranges never overlap, so scatter-add == scatter-or.
+4. exclusive scans over the slot lengths yield every slot's absolute bit
+   offset, and the slots are OR-ed into u32 words (pack_entries; the
+   scatter-add reference packer pack_bits states the same semantics).
+   Bit ranges never overlap, so add == or.
 
 The result is bit-identical to the reference's sequential walk (verified
 against the oracle), fully vectorized, and vmap/shard_map friendly. Slot
@@ -28,7 +29,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -38,12 +38,6 @@ from jpeg_encoder_tpu import tables
 from jpeg_encoder_tpu.config import FrameGeometry
 
 SLOTS_PER_ENTRY = 65
-
-# Dev A/B knob: widen the marshaled coefficients to int32 in XLA (fusing
-# the cast into the marshal's output write) so the fused kernel's load
-# stage skips the in-kernel i16 widen, trading 2x input HBM bytes for it
-# (tools/exp_kernel_sections.py 'load' section).
-_I32_COEFFS = os.environ.get("JPEG_TPU_I32_COEFFS") == "1"
 
 
 # --------------------------------------------------------------------------
@@ -137,17 +131,17 @@ def marshal_scan_inputs(
 ) -> tuple[jnp.ndarray, jnp.ndarray | None]:
     """Natural-order coefficient planes -> (scan-entry rows, DC diffs).
 
-    want_diff=False skips the DC-difference computation (the fused kernel
-    computes differences itself from the raw DCs in slot 0) and returns
-    None in its place.
+    want_diff=False skips the DC-difference computation (callers that
+    difference per restart interval do it themselves from the raw DCs in
+    slot 0) and returns None in its place.
 
     Scan-entry ordering via pure layout ops (no gathers): luma blocks
     regroup into h x v superblocks with one reshape/transpose; MCU k's
     entries are [superblock k row-major | cb k | cr k]
     (entropy_coding.rs:97-124). Superblocks past the chroma-driven MCU
     count are never emitted (quirk geometries; see _luma_scan_order).
-    Marshalling keeps the input dtype (usually int16) — the layout work
-    is HBM-bandwidth-bound, and the fused kernel casts tiles in VMEM.
+    Marshalling keeps the input dtype (usually int16): the layout work
+    is bound by memory bandwidth, and the consumers widen it themselves.
     The DC "running predictor" is a shifted subtraction per component
     chain, seeded from init_dc (zeros, or a previous shard's final DCs).
     """
@@ -173,10 +167,7 @@ def marshal_scan_inputs(
         # CONSECUTIVE row-major rows, so the whole MCU flattens to one
         # (64 * bpm)-lane row [Y_hk..Y_hk+h-1 | Cb_k | Cr_k] and the
         # interleave is a LANE concat plus a free reshape: (m, 64 * bpm)
-        # row-major IS the scan-entry sequence. Both the general
-        # (m, hv, 64)+(m, 1, 64)+(m, 1, 64) i16 concat and a stack-based
-        # interleave pick pathological TPU layouts here (measured 3.2 /
-        # 8.2 ms in situ vs sub-ms for this form; tools/exp_marshal422).
+        # row-major IS the scan-entry sequence.
         y2 = y_mcu.reshape(m, 64 * hv)
         rows = jnp.concatenate(
             [y2, cb_coeffs[:m], cr_coeffs[:m]], axis=1
@@ -209,9 +200,7 @@ def encode_scan(
     capacity_bytes: int,
     init_dc: jnp.ndarray | None = None,
     coeffs_zigzagged: bool = False,
-    packer: str = "xla",
     live_entries: jnp.ndarray | None = None,
-    dc_in_kernel: bool = True,
     luts: tuple[jnp.ndarray, jnp.ndarray] | None = None,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Quantized coefficients -> packed entropy bytes.
@@ -225,27 +214,17 @@ def encode_scan(
       init_dc: optional (3,) int32 initial DC predictors (Y, Cb, Cr); defaults
         to zeros. Non-zero values are how MCU-band-sharded encodes chain
         their predictors across devices (see parallel/tiled.py).
-      coeffs_zigzagged: the inputs are already in zigzag order (the Pallas
-        DCT kernels fold the zigzag permutation into their constants), so
-        skip the gather here. DC stays at column 0 either way.
-      packer: "xla" (gather-based output assembly), "pallas" (sequential
-        VMEM-resident assembly kernel after XLA symbolization), "fused"
-        (kernels/entropy_pallas.py: symbolization + Huffman + packing in
-        one kernel — the TPU default), or the "*_interpret" variants for
-        CPU tests.
+      coeffs_zigzagged: the inputs are already in zigzag order (the DCT
+        folds the zigzag permutation into its constants), so skip the
+        gather here. DC stays at column 0 either way.
       live_entries: optional traced scalar; scan entries at index >=
         live_entries emit zero bits (their coefficients may be arbitrary).
         Used by uneven MCU-band sharding (parallel/tiled.py) where the
         trailing band(s) carry padding rows: dead entries are always a
         suffix of the scan, so the live prefix's bits and total are
-        unaffected. Supported by every packer.
-      dc_in_kernel: fused packer only; True (the default) lets the fused
-        kernel difference the raw DCs itself, False computes the
-        differences in XLA and merges them into slot 0. Both settings are
-        byte-identical (tests cover both); False exists as the
-        verification tier and for XLA-ordered-chain programs, where it
-        once flipped that fusion's emitter windowing (the chain is no
-        longer a production TPU path — kernels/dct_pallas.py is).
+        unaffected.
+      luts: optional (dc, ac) packed (2, 256) code tables replacing the
+        Annex-K ones (see encode_entries_xla).
 
     Returns:
       (bytes_u8 of shape (capacity_bytes,), total_bits scalar int32). The
@@ -256,37 +235,15 @@ def encode_scan(
     """
     assert capacity_bytes % 4 == 0
     hv = geom.h_factor * geom.v_factor
-
-    if packer in ("fused", "fused_interpret"):
-        # Everything below (symbolization, DC differences, LUTs, packing)
-        # happens inside the fused Pallas kernel; only marshalling stays
-        # in XLA (want_diff=False: the kernel differences the raw DCs).
-        # Per-image tables (luts) are traced kernel operands — the stuffed
-        # row layout is rebuilt from them in XLA, so one compiled kernel
-        # serves every optimized table set.
-        from jpeg_encoder_tpu.kernels import entropy_pallas
-
+    with jax.named_scope("scan_marshal"):
         z, entry_diff = marshal_scan_inputs(
-            y_coeffs, cb_coeffs, cr_coeffs, geom, init_dc,
-            coeffs_zigzagged, want_diff=not dc_in_kernel,
+            y_coeffs, cb_coeffs, cr_coeffs, geom, init_dc, coeffs_zigzagged
         )
-        if _I32_COEFFS:
-            z = z.astype(jnp.int32)
-        words, total_bits = entropy_pallas.encode_entropy_fused(
-            z, geom, capacity_bytes, init_dc=init_dc,
-            interpret=(packer == "fused_interpret"),
-            live_entries=live_entries,
-            dc_in_kernel=dc_in_kernel, dc_diff=entry_diff,
-            luts=luts,
+    with jax.named_scope("entropy_pack"):
+        return encode_entries_xla(
+            z.astype(jnp.int32), entry_diff, hv, capacity_bytes,
+            live_entries, luts,
         )
-        return _words_to_bytes(words), total_bits
-    z, entry_diff = marshal_scan_inputs(
-        y_coeffs, cb_coeffs, cr_coeffs, geom, init_dc, coeffs_zigzagged
-    )
-    return encode_entries_xla(
-        z.astype(jnp.int32), entry_diff, hv, capacity_bytes, packer,
-        live_entries, luts,
-    )
 
 
 def default_packed_luts() -> tuple[np.ndarray, np.ndarray]:
@@ -318,7 +275,6 @@ def encode_entries_xla(
     entry_diff: jnp.ndarray,
     hv: int,
     capacity_bytes: int,
-    packer: str = "xla",
     live_entries: jnp.ndarray | None = None,
     luts: tuple[jnp.ndarray, jnp.ndarray] | None = None,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
@@ -349,9 +305,8 @@ def encode_entries_xla(
         dc_lut, ac_lut = luts
         # Custom tables can assign 1-bit codes -> 2-bit minimum entries;
         # the output assembly must consider more intersecting entries per
-        # word, and only the XLA packer takes the widened count.
+        # word.
         candidates = ASSEMBLE_CANDIDATES_CUSTOM
-        packer = "xla"
 
     # ---- DC slot (slot 0) ----
     dc_bl = _bit_length(entry_diff)
@@ -415,7 +370,7 @@ def encode_entries_xla(
 
     if live_entries is not None:
         # Dead suffix entries (padding MCU rows of an uneven band split)
-        # emit nothing. Their slot buffers zero out, so the packers' gather
+        # emit nothing. Their slot buffers zero out, so the packer's gather
         # windows read zeros past the live stream, and the cumsum-derived
         # total counts only live bits.
         live = (
@@ -425,12 +380,7 @@ def encode_entries_xla(
         slot_lens = jnp.where(live, slot_lens, 0)
         slot_bits = jnp.where(live, slot_bits, jnp.uint32(0))
 
-    if packer == "xla":
-        return pack_entries(slot_bits, slot_lens, capacity_bytes, candidates)
-    return pack_entries_pallas(
-        slot_bits, slot_lens, capacity_bytes,
-        interpret=(packer == "pallas_interpret"),
-    )
+    return pack_entries(slot_bits, slot_lens, capacity_bytes, candidates)
 
 
 def symbol_histograms(
@@ -556,7 +506,6 @@ def encode_scan_restart(
     capacity_bytes: int,
     restart_mcus: int,
     coeffs_zigzagged: bool = False,
-    packer: str = "xla",
     live_entries: jnp.ndarray | None = None,
     luts: tuple[jnp.ndarray, jnp.ndarray] | None = None,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
@@ -571,12 +520,11 @@ def encode_scan_restart(
     (n_intervals, restart_mcus * bpm, 64) — interval boundaries are MCU
     boundaries, so the per-entry component pattern stays aligned — and the
     scan encoder vmaps over the interval axis: every interval packs
-    concurrently, each an instance of the same fused kernel the unbroken
-    scan uses (the batch path already proves the kernel under vmap). A
-    short trailing interval rides the live-entry masking the uneven-band
-    tiled path uses. Restart markers are absent from the reference
-    (file.rs:77-90); this is the TPU-native extension that makes the
-    emitted files parallel-decodable (and band-splicing trivial).
+    concurrently, each an instance of the same symbolize + pack program
+    the unbroken scan uses. A short trailing interval rides the
+    live-entry masking the uneven-band tiled path uses. Restart markers
+    are absent from the reference (file.rs:77-90); this extension makes
+    the emitted files parallel-decodable (and band-splicing trivial).
 
     Returns (payload bytes (n_intervals, capacity_bytes), bits
     (n_intervals,)). Overflow handling is per the unbroken scan: if any
@@ -616,36 +564,10 @@ def encode_scan_restart(
         total - jnp.arange(n_int, dtype=jnp.int32) * epi, 0, epi
     )
 
-    if packer in ("fused", "fused_interpret"):
-        from jpeg_encoder_tpu.kernels import entropy_pallas
-
-        # Smallest legal grid step covering one interval: per-interval
-        # padding shrinks from TILE-sized to the next 256*2^k >= epi
-        # (an interval of one 1080p MCU row = 720 entries pads 1.42x at
-        # tile 1024 instead of 2.84x at the default 2048). Clamped to the
-        # configured TILE by min (never exceeds the env cap; an invalid
-        # cap still fails the kernel's validity check, same as the
-        # unbroken path).
-        tile = 256
-        while tile < epi:
-            tile *= 2
-        tile = min(tile, entropy_pallas.TILE)
-
-        def one(zz, lv):
-            words, bits = entropy_pallas.encode_entropy_fused(
-                zz, geom, capacity_bytes,
-                interpret=(packer == "fused_interpret"), live_entries=lv,
-                tile=tile, luts=luts,
-            )
-            return _words_to_bytes(words), bits
-
-        return jax.vmap(one)(zi, live)
-
     def one(zz, lv):
         zz = zz.astype(jnp.int32)
         return encode_entries_xla(
-            zz, interval_dc_diffs(zz, hv), hv, capacity_bytes, packer, lv,
-            luts,
+            zz, interval_dc_diffs(zz, hv), hv, capacity_bytes, lv, luts,
         )
 
     return jax.vmap(one)(zi, live)
@@ -663,8 +585,8 @@ def coefficient_ranges(
     The reference panics when a DC difference needs more than 11 bits or an
     AC coefficient more than 10 (entropy_coding.rs:153-155,188-191) — both
     unreachable for valid u8 image input, but reachable when callers feed
-    raw coefficient arrays. The TPU build checks these host-side
-    (pipeline.validate_scan_ranges) instead of trusting kernels to trap.
+    raw coefficient arrays. The device program reports them and the host
+    checks them (pipeline.validate_scan_ranges).
     """
     h, v = geom.h_factor, geom.v_factor
     m = geom.num_mcus
@@ -788,47 +710,13 @@ def _words_to_bytes(words: jnp.ndarray) -> jnp.ndarray:
     return jax.lax.bitcast_convert_type(words, jnp.uint8)[:, ::-1].reshape(-1)
 
 
-def pack_entries_pallas(
-    slot_bits: jnp.ndarray,
-    slot_lens: jnp.ndarray,
-    capacity_bytes: int,
-    interpret: bool = False,
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Level-1 masked-OR + sequential Pallas bitstream assembly.
-
-    Same contract as pack_entries. This is the middle VERIFICATION tier
-    (production uses the fused kernel, whose VMEM budget is 6x larger):
-    its resident output must fit pack_pallas.MAX_VMEM_CAPACITY, and
-    callers holding bigger buffers (e.g. 4K worst-case retry capacities)
-    must use pack_entries or the fused packer — enforced here rather
-    than left to a silent slow compile.
-    """
-    from jpeg_encoder_tpu.kernels import pack_pallas
-
-    assert capacity_bytes % 4 == 0
-    if capacity_bytes > pack_pallas.MAX_VMEM_CAPACITY:
-        raise ValueError(
-            f"packer='pallas' holds its {capacity_bytes}-byte output "
-            f"resident in VMEM (cap {pack_pallas.MAX_VMEM_CAPACITY}); use "
-            "the 'fused' or 'xla' packer for buffers this large"
-        )
-    entry_words, entry_bits = _pack_level1(slot_bits, slot_lens)
-    start_bit = jnp.cumsum(entry_bits) - entry_bits
-    total_bits = (start_bit[-1] + entry_bits[-1]).astype(jnp.int32)
-    words = pack_pallas.assemble_bitstream_pallas(
-        entry_words, start_bit.astype(jnp.int32), capacity_bytes, interpret
-    )
-    return _words_to_bytes(words), total_bits
-
-
 def pack_entries(
     slot_bits: jnp.ndarray, slot_lens: jnp.ndarray, capacity_bytes: int,
     candidates: int = ASSEMBLE_CANDIDATES,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Scatter-free bitstream packing of (E, S) per-entry slot codes.
 
-    Two levels, both plain vector code (TPU scatters serialize; this doesn't
-    use any):
+    Two levels, both plain vector code with no scatter:
 
     1. Per entry: _pack_level1's masked-OR sweep.
     2. Global: entry e's stream starts at bit offset O[e] (one exclusive
@@ -884,9 +772,8 @@ def pack_bits(
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Reference packer: scatter-add of flat (S,) slot codes.
 
-    Kept as the simple oracle for pack_entries (scatters serialize on TPU,
-    so the pipeline uses pack_entries); still the clearest statement of the
-    packing semantics.
+    Kept as the simple oracle for pack_entries; the clearest statement of
+    the packing semantics.
     """
     offsets = jnp.cumsum(slot_lens) - slot_lens
     total_bits = (offsets[-1] + slot_lens[-1]).astype(jnp.int32)

@@ -46,13 +46,11 @@ def subsample_plane(plane: jnp.ndarray, geom: FrameGeometry) -> jnp.ndarray:
         # reference ratios); a factor-4 ratio (4:1:1) must not silently skip
         # the reduction.
         raise NotImplementedError(f"unsupported subsampling factors ({h}, {v})")
-    # Pairwise strided adds over ROWS lower ~4x faster on TPU than the 4-D
-    # reshape + two-axis reduction; int16 holds the <= 1020 window sums.
-    # The COLUMN pairing must not use a strided lane slice: when a layout-
-    # sensitive consumer (the 4:2:2 scan marshal) sits downstream, XLA
-    # lowers x[:, 0::2] to gather + full-plane s16 transposes (~8 ms/batch,
-    # tools/exp_marshal422). Bitcasting adjacent int16 pairs to one int32
-    # keeps it elementwise: both halves are < 2^15, so low = w & 0xFFFF and
+    # Pairwise strided adds over ROWS instead of a 4-D reshape + two-axis
+    # reduction; int16 holds the <= 1020 window sums. The COLUMN pairing
+    # avoids a strided lane slice (which XLA may lower to a gather plus
+    # transposes): bitcasting adjacent int16 pairs to one int32 keeps it
+    # elementwise, since both halves are < 2^15, so low = w & 0xFFFF and
     # high = w >> 16 recover the pair exactly. Values are identical either
     # way: same windows, same floor mean.
     x = plane.astype(jnp.int16)

@@ -21,7 +21,7 @@ numeric quirk of the reference pipeline:
   predictors, zigzag RLE with ZRL/EOB, canonical Huffman emission, and a
   zero-padded final byte (entropy_coding.rs, bitvec_utils.rs, file.rs:92-103).
 
-This is NOT the production path — see pipeline.py for the TPU encoder. It is
+This is NOT the production path — see pipeline.py for the device encoder. It is
 kept vectorized only enough to make tests fast on small images.
 """
 
@@ -137,6 +137,12 @@ def real_dct_quant_exact(blocks: np.ndarray, quant: np.ndarray) -> np.ndarray:
     and truncates toward zero — the exact arithmetic of
     dct_quant.rs:189-234. Returns int16 coefficients in natural order.
     """
+    return quantize_real_exact(real_dct_exact(blocks), quant)
+
+
+def real_dct_exact(blocks: np.ndarray) -> np.ndarray:
+    """The unquantized half of real_dct_quant_exact: (N, 8, 8) f32
+    coefficients scale[u, v] * acc[u, v], before the quant division."""
     basis = dct_basis_f32()
     shifted = (blocks.astype(np.int16) - 128).astype(_F32)  # level shift
     n = blocks.shape[0]
@@ -151,8 +157,12 @@ def real_dct_quant_exact(blocks: np.ndarray, quant: np.ndarray) -> np.ndarray:
     inv_sqrt2 = _F32(1.0) / _F32(np.sqrt(2.0))  # f32(sqrt2) like f32::consts::SQRT_2
     alpha = np.where(np.arange(8) == 0, inv_sqrt2, _F32(1.0)).astype(_F32)
     scale = (_F32(0.25) * alpha[:, None]) * alpha[None, :]
-    coeffs = (scale[None] * acc) / quant.astype(_F32)[None]
-    return np.trunc(coeffs).astype(np.int16)
+    return scale[None] * acc
+
+
+def quantize_real_exact(coeffs: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """f32 divide by the (8, 8) quant table, truncate toward zero."""
+    return np.trunc(coeffs / quant.astype(_F32)[None]).astype(np.int16)
 
 
 def _bindct_lifting_1d(x: list[np.ndarray]) -> list[np.ndarray]:
@@ -205,13 +215,33 @@ def bin_dct_quant_exact(blocks: np.ndarray, quant: np.ndarray) -> np.ndarray:
     network's diagonal gains are NOT folded out), so outputs match
     dct_quant.rs:67-187 bit for bit.
     """
+    return quantize_bin_exact(bin_dct_transform_exact(blocks), quant)
+
+
+def quantize_bin_exact(work: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """Integer division of raw lifting outputs, truncating toward zero."""
+    q = quant.astype(np.int32)[None]
+    return (np.sign(work) * (np.abs(work) // q)).astype(np.int16)
+
+
+def bin_dct_transform_exact(blocks: np.ndarray) -> np.ndarray:
+    """(N, 8, 8) uint8 -> (N, 8, 8) int32 raw binDCT-C lifting outputs."""
     work = blocks.astype(np.int32) - 128
     rows = _bindct_lifting_1d([work[:, :, i] for i in range(8)])
     work = np.stack(rows, axis=2)  # row transform: frequency along axis 2
     cols = _bindct_lifting_1d([work[:, i, :] for i in range(8)])
-    work = np.stack(cols, axis=1)
-    q = quant.astype(np.int32)[None]
-    return (np.sign(work) * (np.abs(work) // q)).astype(np.int16)
+    return np.stack(cols, axis=1)
+
+
+def bin_dct_descale_quant_exact(
+    work: np.ndarray, quant: np.ndarray, factors: np.ndarray
+) -> np.ndarray:
+    """The corrected binDCT-C quantizer (--bin-dct-descale), which the
+    reference lacks: raw lifting outputs (bin_dct_transform_exact) times
+    the (64,) f32 gain factors, divided by the quant table, each an f32
+    operation rounded on its own, then truncated toward zero."""
+    scaled = work.astype(_F32) * factors.reshape(1, 8, 8).astype(_F32)
+    return np.trunc(scaled / quant.astype(_F32)[None]).astype(np.int16)
 
 
 def dct_and_quantize(
@@ -338,8 +368,21 @@ def entropy_encode(
     cb_coeffs: np.ndarray,
     cr_coeffs: np.ndarray,
     geom: FrameGeometry,
+    specs: tuple | None = None,
+    init_dc: tuple[int, int, int] = (0, 0, 0),
+    num_mcus: int | None = None,
 ) -> tuple[bytes, int]:
-    """Interleaved scan over all MCUs -> (entropy bytes, bit length)."""
+    """Interleaved scan over MCUs -> (entropy bytes, bit length).
+
+    specs = (Y-DC, C-DC, Y-AC, C-AC) HuffmanSpecs replaces the Annex-K
+    tables (the optimized-Huffman mode); init_dc seeds the (Y, Cb, Cr) DC
+    predictors (a band's predecessor's last DCs); num_mcus encodes only
+    that many leading MCUs.
+    """
+    if specs is None:
+        specs = (tables.Y_DC_HUFFMAN, tables.C_DC_HUFFMAN,
+                 tables.Y_AC_HUFFMAN, tables.C_AC_HUFFMAN)
+    y_dc, c_dc, y_ac, c_ac = specs
     writer = BitWriter()
     zz = tables.ZIGZAG_ORDER
     y_zz = y_coeffs.reshape(-1, 64)[:, zz]
@@ -347,21 +390,14 @@ def entropy_encode(
     cr_zz = cr_coeffs.reshape(-1, 64)[:, zz]
     luma_order = luma_scan_order(geom)
 
-    prev = {"y": 0, "cb": 0, "cr": 0}
-    for mcu in range(geom.num_mcus):
+    prev = dict(zip(("y", "cb", "cr"), (int(d) for d in init_dc)))
+    for mcu in range(geom.num_mcus if num_mcus is None else num_mcus):
         for block_idx in luma_order[mcu]:
             prev["y"] = encode_block(
-                y_zz[block_idx], prev["y"],
-                tables.Y_DC_HUFFMAN, tables.Y_AC_HUFFMAN, writer,
+                y_zz[block_idx], prev["y"], y_dc, y_ac, writer
             )
-        prev["cb"] = encode_block(
-            cb_zz[mcu], prev["cb"],
-            tables.C_DC_HUFFMAN, tables.C_AC_HUFFMAN, writer,
-        )
-        prev["cr"] = encode_block(
-            cr_zz[mcu], prev["cr"],
-            tables.C_DC_HUFFMAN, tables.C_AC_HUFFMAN, writer,
-        )
+        prev["cb"] = encode_block(cb_zz[mcu], prev["cb"], c_dc, c_ac, writer)
+        prev["cr"] = encode_block(cr_zz[mcu], prev["cr"], c_dc, c_ac, writer)
     return writer.to_bytes(), writer.bit_length
 
 

@@ -1,7 +1,7 @@
 """Device mesh helpers.
 
 The reference's only parallelism is two std::thread::scope forks inside one
-process (sampling.rs:83-98, dct_quant.rs:29-60). The TPU equivalent of
+process (sampling.rs:83-98, dct_quant.rs:29-60). Here the equivalent of
 "more throughput" is a jax.sharding.Mesh: a flat "data" axis for
 embarrassingly parallel batch encode, and the same axis reused as the MCU
 band axis when sharding one huge image. Multi-host pods reuse these helpers

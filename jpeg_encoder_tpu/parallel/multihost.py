@@ -1,12 +1,12 @@
 """Multi-host dataset encoding: shard a file list across processes.
 
-The reference is a single-process CLI (main.rs); the TPU build's scale-out
-story for the "1000x 4K across >= 2 hosts" configuration (BASELINE.md
+The reference is a single-process CLI (main.rs); this build's scale-out
+story for the "1000x 4K across >= 2 hosts" configuration (BASELINE.json
 config 5) is deliberately simple, following the batch-parallel mapping in
 SURVEY.md section 2:
 
 * `initialize()` wraps jax.distributed.initialize — after it, jax.devices()
-  spans the pod slice and every parallel/ helper works unchanged;
+  spans every process's devices and every parallel/ helper works unchanged;
 * each process takes a strided slice of the file list (no coordination:
   whole images are independent), and pushes it through the overlapped
   decode | compute | write engine (parallel/stream.py) over its *local*
@@ -18,9 +18,9 @@ SURVEY.md section 2:
   equivalent for a batch tool — SURVEY.md section 5), so a failed host can
   simply be restarted;
 * the only cross-host traffic is the optional final byte-count summary
-  (a process_allgather over a few integers, riding DCN).
+  (a process_allgather over a few integers).
 
-Single-process (or single-chip) use degrades gracefully: the same code
+Single-process (or single-device) use degrades gracefully: the same code
 encodes everything locally.
 """
 

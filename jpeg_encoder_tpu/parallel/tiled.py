@@ -1,13 +1,13 @@
-"""Sharded single-image encode: MCU bands across the mesh + ICI collectives.
+"""Sharded single-image encode: MCU bands across the mesh + collectives.
 
-The TPU answer to "the image is too big for one chip" (the analog of
+The answer to "the image is too big for one device" (the analog of
 sequence parallelism): split the image into contiguous MCU-row bands, one
 per device. Every stage is band-local except two genuinely global pieces of
 state, both tiny:
 
 * the running DC predictors — each band's first DC difference depends on
   the previous band's final DC value. Since raw DCs are known after the
-  DCT, one `lax.ppermute` (three int32 per device, riding ICI) shifts each
+  DCT, one `lax.ppermute` (three int32 per device) shifts each
   band's final (Y, Cb, Cr) DCs to its successor; band 0 receives the
   implicit zero predictors. No serial chain, one hop.
 * the bitstream itself — each band packs its own byte-aligned stream and
@@ -97,7 +97,7 @@ def _live_mcu_rows(geom: FrameGeometry, band_rows: int, idx: int) -> int:
 
 
 def _band_coeffs(rgb_band, band_geom, algorithm, fast_dct, bin_dct_descale,
-                 live_px_rows=None, quality=None, transposed_dct=None):
+                 live_px_rows=None, quality=None):
     """One band's front half: RGB rows -> zigzag quantized coefficients.
 
     Shared by the encode pass and the optimized-Huffman statistics pass
@@ -116,25 +116,20 @@ def _band_coeffs(rgb_band, band_geom, algorithm, fast_dct, bin_dct_descale,
     y = sample.pad_plane(y, band_geom)
     cb = sample.subsample_plane(sample.pad_plane(cb, band_geom), band_geom)
     cr = sample.subsample_plane(sample.pad_plane(cr, band_geom), band_geom)
-    y_q, cb_q, cr_q, _ = pipeline.dct_planes_zigzag(
-        y, cb, cr,
-        algorithm, fast_dct, bin_dct_descale, quality, transposed_dct,
+    return pipeline.dct_planes_zigzag(
+        y, cb, cr, algorithm, fast_dct, bin_dct_descale, quality
     )
-    return y_q, cb_q, cr_q
 
 
 def _encode_band(rgb_band, band_geom, algorithm, capacity, fast_dct,
                  bin_dct_descale, init_dc, live_entries=None,
-                 packer="xla", live_px_rows=None, quality=None,
-                 transposed_dct=None, restart=None, luts=None):
+                 live_px_rows=None, quality=None, restart=None, luts=None):
     """One band's full compute: planes -> coefficients -> packed bits.
 
     Shared between the shard_map program and the single-band overflow
     retry so both are the same arithmetic (byte-identical outputs). The
-    DCT runs through pipeline.dct_planes_zigzag — the SAME production
-    kernels as the batch path (the transposed-layout Pallas kernels on
-    TPU), with in-kernel DC differencing seeded from this band's
-    ppermuted predecessors when a Pallas kernel made the coefficients.
+    DCT runs through pipeline.dct_planes_zigzag, the same production path
+    as the batch encode.
 
     init_dc is either the (3,) initial DC predictors, or a callable that
     maps this band's final (Y, Cb, Cr) DC values to its predictors — the
@@ -160,13 +155,12 @@ def _encode_band(rgb_band, band_geom, algorithm, capacity, fast_dct,
     """
     y_q, cb_q, cr_q = _band_coeffs(
         rgb_band, band_geom, algorithm, fast_dct, bin_dct_descale,
-        live_px_rows, quality, transposed_dct,
+        live_px_rows, quality,
     )
     if restart is not None:
         payloads, bits = entropy.encode_scan_restart(
             y_q, cb_q, cr_q, band_geom, capacity, restart,
-            coeffs_zigzagged=True, packer=packer,
-            live_entries=live_entries, luts=luts,
+            coeffs_zigzagged=True, live_entries=live_entries, luts=luts,
         )
         return payloads, bits, jnp.zeros((3,), jnp.int32)
     if callable(init_dc):
@@ -175,8 +169,7 @@ def _encode_band(rgb_band, band_geom, algorithm, capacity, fast_dct,
         init_dc = init_dc(entropy.final_dc(y_q, cb_q, cr_q, band_geom))
     payload, bits = entropy.encode_scan(
         y_q, cb_q, cr_q, band_geom, capacity, init_dc=init_dc,
-        live_entries=live_entries, packer=packer, coeffs_zigzagged=True,
-        luts=luts,
+        live_entries=live_entries, coeffs_zigzagged=True, luts=luts,
     )
     return payload, bits, init_dc
 
@@ -191,7 +184,6 @@ def compiled_tiled_encoder(
     bin_dct_descale: bool = False,
     quality: int | None = None,
     replicate_out: bool = False,
-    transposed_dct: bool | None = None,
     restart: int | None = None,
     band_rows: int | None = None,
     custom_luts: bool = False,
@@ -200,7 +192,7 @@ def compiled_tiled_encoder(
     (n_dev,) bit lengths, (n_dev, 3) per-band initial DC predictors).
 
     replicate_out=True makes XLA all-gather the outputs onto every device
-    (ICI within a host, DCN across hosts) so each PROCESS of a multi-host
+    so each PROCESS of a multi-host
     mesh holds the full payload set for host-side splicing — the
     device-side "collective bitstream assembly" of BASELINE config 5.
 
@@ -227,10 +219,6 @@ def compiled_tiled_encoder(
     band_geom = _band_geometry(geom, band_h)
     uneven = band_rows * n_dev != geom.mcu_rows
     entries_per_mcu_row = geom.mcu_cols * geom.blocks_per_mcu
-    if restart is not None:
-        packer = pipeline.restart_packer(band_geom, restart, capacity)
-    else:
-        packer = pipeline.default_packer(capacity)
 
     def shard_fn(rgb_band, *luts):  # (band_h, W, 3) uint8
         idx = jax.lax.axis_index(DATA_AXIS)
@@ -256,8 +244,8 @@ def compiled_tiled_encoder(
 
         payload, bits, prev = _encode_band(
             rgb_band, band_geom, algorithm, capacity, fast_dct,
-            bin_dct_descale, chain, live_entries, packer, live_px_rows,
-            quality, transposed_dct, restart, luts or None,
+            bin_dct_descale, chain, live_entries, live_px_rows,
+            quality, restart, luts or None,
         )
         return payload[None], bits[None], prev[None]
 
@@ -276,8 +264,6 @@ def compiled_tiled_encoder(
         mesh=mesh,
         in_specs=in_specs,
         out_specs=(payload_spec, bits_spec, P(DATA_AXIS, None)),
-        # Pallas outputs don't carry vma metadata; every kernel here is
-        # shard-local, so the varying-mesh-axes check adds nothing.
         check_vma=False,
     )
     if replicate_out:
@@ -294,7 +280,6 @@ def compiled_tiled_stats(
     fast_dct: bool = False,
     bin_dct_descale: bool = False,
     quality: int | None = None,
-    transposed_dct: bool | None = None,
     restart: int | None = None,
     band_rows: int | None = None,
 ):
@@ -304,7 +289,7 @@ def compiled_tiled_stats(
     histograms its own scan slice — with DC predictor chains seeded from
     its ppermuted predecessors (or per-interval resets under restart
     framing) and uneven-band padding masked out — and one psum over the
-    band axis (4x256 ints riding ICI) yields the whole scan's counts,
+    band axis (4x256 ints) yields the whole scan's counts,
     replicated so the host can build ONE table set for every band.
     """
     n_dev = mesh.devices.size
@@ -327,7 +312,7 @@ def compiled_tiled_stats(
             live_entries = None
         y_q, cb_q, cr_q = _band_coeffs(
             rgb_band, band_geom, algorithm, fast_dct, bin_dct_descale,
-            live_px_rows, quality, transposed_dct,
+            live_px_rows, quality,
         )
         if restart is None:
             init_dc = jax.lax.ppermute(
@@ -361,7 +346,6 @@ def compiled_band_encoder(
     fast_dct: bool = False,
     bin_dct_descale: bool = False,
     quality: int | None = None,
-    transposed_dct: bool | None = None,
     custom_luts: bool = False,
 ):
     """Jitted single-band re-encode for overflow retry: (band_h, W, 3) uint8
@@ -374,9 +358,7 @@ def compiled_band_encoder(
         payload, bits, _ = _encode_band(
             rgb_band, band_geom, algorithm, capacity, fast_dct,
             bin_dct_descale, init_dc,
-            packer=pipeline.default_packer(capacity),
-            live_px_rows=live_px_rows, quality=quality,
-            transposed_dct=transposed_dct, luts=luts or None,
+            live_px_rows=live_px_rows, quality=quality, luts=luts or None,
         )
         return payload, bits
 
@@ -445,7 +427,7 @@ def encode_tiled(
         # the band size is ours to choose: take the smallest aligned
         # band_rows instead (trailing devices go dead but the mesh stays
         # busy). Only when NO aligned multi-band split exists does the
-        # n-chip -> 1-chip fallback fire.
+        # n-device -> 1-device fallback fire.
         aligned = _aligned_band_rows(geom, n_dev, restart)
         if aligned is not None and -(-geom.mcu_rows // aligned) > 1:
             band_rows = aligned
@@ -490,13 +472,12 @@ def encode_tiled(
         device_rgb = jnp.asarray(padded)
     if config.optimize_huffman:
         # Cross-band table agreement: every band's statistics psum into
-        # one whole-scan histogram (4x256 ints over ICI), the host builds
+        # one whole-scan histogram (4x256 ints), the host builds
         # ONE optimal table set, and every band codes with it — so the
         # tiled optimized file equals the single-device optimized file.
         hist = np.asarray(compiled_tiled_stats(
             mesh, geom, config.dct_algorithm, config.fast_dct,
-            config.bin_dct_descale, config.quality, config.transposed_dct,
-            restart, band_rows,
+            config.bin_dct_descale, config.quality, restart, band_rows,
         )(device_rgb))
         dht_specs, dc_lut, ac_lut = pipeline.optimal_specs_and_luts(hist)
         # Retry paths re-encode a band on a process-LOCAL device; keep the
@@ -517,8 +498,7 @@ def encode_tiled(
         encoder = compiled_tiled_encoder(
             mesh, geom, config.dct_algorithm, capacity, config.fast_dct,
             config.bin_dct_descale, config.quality, replicate_out=multi,
-            transposed_dct=config.transposed_dct, restart=restart,
-            band_rows=band_rows, custom_luts=True,
+            restart=restart, band_rows=band_rows, custom_luts=True,
         )
         payloads, bit_lengths, init_dcs = encoder(device_rgb, dc_lut, ac_lut)
     else:
@@ -527,15 +507,13 @@ def encode_tiled(
         encoder = compiled_tiled_encoder(
             mesh, geom, config.dct_algorithm, capacity, config.fast_dct,
             config.bin_dct_descale, config.quality, replicate_out=multi,
-            transposed_dct=config.transposed_dct, restart=restart,
-            band_rows=band_rows,
+            restart=restart, band_rows=band_rows,
         )
         payloads, bit_lengths, init_dcs = encoder(device_rgb)
     bit_lengths = np.asarray(bit_lengths)
     # Device-side prefix slice before the fetch: the capacity rectangle
-    # is ~5x the real payloads and the device->host transfer dominates
-    # the host path on remote-attached chips (pipeline.bucket_fetch_bytes
-    # keeps the slice shapes stable).
+    # is ~5x the real payloads (pipeline.bucket_fetch_bytes keeps the
+    # slice shapes stable).
     max_bytes = pipeline.bucket_fetch_bytes(
         (int(bit_lengths.max()) + 7) // 8, capacity
     )
@@ -656,7 +634,7 @@ def _retry_band_restart(
         enc = compiled_band_restart_encoder(
             live_geom, config.dct_algorithm, capacity, restart,
             config.fast_dct, config.bin_dct_descale, config.quality,
-            config.transposed_dct, custom_luts=luts is not None,
+            custom_luts=luts is not None,
         )
         payloads, bits = (
             enc(band_rgb, live_px, *luts) if luts is not None
@@ -678,7 +656,6 @@ def compiled_band_restart_encoder(
     fast_dct: bool = False,
     bin_dct_descale: bool = False,
     quality: int | None = None,
-    transposed_dct: bool | None = None,
     custom_luts: bool = False,
 ):
     """Jitted single-band restart re-encode for overflow retry."""
@@ -686,11 +663,8 @@ def compiled_band_restart_encoder(
     def fn(rgb_band, live_px_rows, *luts):
         payloads, bits, _ = _encode_band(
             rgb_band, band_geom, algorithm, capacity, fast_dct,
-            bin_dct_descale, None,
-            packer=pipeline.restart_packer(band_geom, restart, capacity),
-            live_px_rows=live_px_rows, quality=quality,
-            transposed_dct=transposed_dct, restart=restart,
-            luts=luts or None,
+            bin_dct_descale, None, live_px_rows=live_px_rows,
+            quality=quality, restart=restart, luts=luts or None,
         )
         return payloads, bits
 
@@ -729,7 +703,7 @@ def _retry_band(
         capacity = pipeline.next_capacity_bytes(live_geom, capacity)
         enc = compiled_band_encoder(
             live_geom, config.dct_algorithm, capacity, config.fast_dct,
-            config.bin_dct_descale, config.quality, config.transposed_dct,
+            config.bin_dct_descale, config.quality,
             custom_luts=luts is not None,
         )
         payload, bits = (

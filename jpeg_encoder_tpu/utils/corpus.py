@@ -16,8 +16,8 @@ with natural-image statistics instead of synthetic gradients/noise:
   texture (foliage), straight edges + flat faces (architecture).
 
 Used by tests/test_corpus.py (quality bounds), tools/corpus_report.py
-(the BASELINE.md table), and tools/hw_parity_sweep.py --corpus
-(on-hardware byte-exactness on this content).
+(the quality table), and chip_smoke.py (on-card byte-exactness on this
+content).
 """
 
 from __future__ import annotations

@@ -159,224 +159,136 @@ def test_pack_bits_word_boundary_spans():
     assert np.array_equal(got, expected)
 
 
-def test_pallas_packer_matches_xla(rng):
-    """The sequential Pallas assembly kernel (interpret mode on CPU) must
-    produce the identical payload to the gather-based XLA packer."""
-    import jax.numpy as jnp
-
-    from jpeg_encoder_tpu.config import EncoderConfig
-
-    geom = EncoderConfig(subsampling_ratio=(4, 2, 0)).geometry(48, 32)
-    y = rng.integers(-80, 80, (geom.num_luma_blocks, 64)).astype(np.int16)
-    cb = rng.integers(-40, 40, (geom.num_chroma_blocks, 64)).astype(np.int16)
-    cr = rng.integers(-40, 40, (geom.num_chroma_blocks, 64)).astype(np.int16)
-    for a in (y, cb, cr):
-        a[:, 20:] = np.where(rng.random(a[:, 20:].shape) < 0.9, 0, a[:, 20:])
-    cap = 1 << 14
-    p1, b1 = entropy.encode_scan(
-        jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr), geom, cap,
-        packer="xla",
-    )
-    p2, b2 = entropy.encode_scan(
-        jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr), geom, cap,
-        packer="pallas_interpret",
-    )
-    assert int(b1) == int(b2)
-    assert np.array_equal(np.asarray(p1), np.asarray(p2))
+def _content(kind, n, rng):
+    """(n, 64) natural-order coefficients shaped like one content class."""
+    if kind == "noise":  # dense, large: long codes, many word spans
+        return rng.integers(-300, 300, (n, 64)).astype(np.int16)
+    c = np.zeros((n, 64), np.int16)
+    if kind == "gradient":  # slowly drifting DC, a few low-frequency ACs
+        c[:, 0] = np.cumsum(rng.integers(-3, 4, n)) + 40
+        c[:, [1, 8, 9]] = rng.integers(-6, 7, (n, 3))
+    else:  # flat: one DC value, no AC at all (shortest possible entries)
+        c[:, 0] = 17
+    return c
 
 
-@pytest.mark.parametrize("ratio", [(4, 4, 4), (4, 2, 2), (4, 2, 0)])
-def test_fused_entropy_kernel_matches_xla(ratio, rng):
-    """The fused entropy kernel (interpret mode on CPU) must produce the
-    identical payload and bit count to the XLA symbolize+pack path."""
-    import jax.numpy as jnp
+def _coeffs(geom, kind, rng):
+    return (_content(kind, geom.num_luma_blocks, rng),
+            _content(kind, geom.num_chroma_blocks, rng),
+            _content(kind, geom.num_chroma_blocks, rng))
 
-    from jpeg_encoder_tpu.config import EncoderConfig
 
+RATIOS = [(4, 4, 4), (4, 2, 2), (4, 2, 0)]
+
+
+@pytest.mark.parametrize("kind", ["noise", "gradient", "flat"])
+@pytest.mark.parametrize("ratio", RATIOS)
+def test_xla_packer_matches_oracle(ratio, kind):
+    rng = np.random.default_rng(sum(ratio))
     geom = EncoderConfig(subsampling_ratio=ratio).geometry(48, 32)
-    y = rng.integers(-1000, 1000, (geom.num_luma_blocks, 64)).astype(np.int16)
-    cb = rng.integers(-100, 100, (geom.num_chroma_blocks, 64)).astype(np.int16)
-    cr = rng.integers(-100, 100, (geom.num_chroma_blocks, 64)).astype(np.int16)
-    for a in (y, cb, cr):
-        a[:, 10:] = np.where(rng.random(a[:, 10:].shape) < 0.85, 0, a[:, 10:])
+    _check(*_coeffs(geom, kind, rng), geom)
+
+
+@pytest.mark.parametrize("ratio", RATIOS)
+def test_xla_packer_init_dc_chaining(ratio):
+    """Non-zero initial DC predictors (a band's predecessor's last DCs)."""
+    rng = np.random.default_rng(5)
+    geom = EncoderConfig(subsampling_ratio=ratio).geometry(32, 32)
+    y, cb, cr = _coeffs(geom, "gradient", rng)
+    init = (7, -3, 11)
     cap = 1 << 14
-    p1, b1 = entropy.encode_scan(
-        jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr), geom, cap,
-        packer="xla",
-    )
-    p2, b2 = entropy.encode_scan(
-        jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr), geom, cap,
-        packer="fused_interpret",
-    )
-    assert int(b1) == int(b2)
-    assert np.array_equal(np.asarray(p1), np.asarray(p2))
-
-
-def test_fused_entropy_kernel_respects_init_dc(rng):
-    """Cross-shard DC chaining (init_dc) must flow through the fused path."""
-    import jax.numpy as jnp
-
-    from jpeg_encoder_tpu.config import EncoderConfig
-
-    geom = EncoderConfig(subsampling_ratio=(4, 4, 4)).geometry(16, 16)
-    y = rng.integers(-50, 50, (geom.num_luma_blocks, 64)).astype(np.int16)
-    cb = rng.integers(-50, 50, (geom.num_chroma_blocks, 64)).astype(np.int16)
-    cr = rng.integers(-50, 50, (geom.num_chroma_blocks, 64)).astype(np.int16)
-    init = jnp.asarray([7, -3, 11], jnp.int32)
-    cap = 1 << 12
-    p1, b1 = entropy.encode_scan(
-        jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr), geom, cap,
-        init_dc=init, packer="xla",
-    )
-    p2, b2 = entropy.encode_scan(
-        jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr), geom, cap,
-        init_dc=init, packer="fused_interpret",
-    )
-    assert int(b1) == int(b2)
-    assert np.array_equal(np.asarray(p1), np.asarray(p2))
-
-
-def test_fused_kernel_under_vmap(rng):
-    """Batching the fused kernel with vmap must equal per-image encodes
-    (guards the grid-axis/program_id assumptions the kernel relies on)."""
-    import jax
-    import jax.numpy as jnp
-
-    from jpeg_encoder_tpu.config import EncoderConfig
-
-    geom = EncoderConfig(subsampling_ratio=(4, 4, 4)).geometry(16, 16)
-    batch_y = rng.integers(-60, 60, (2, geom.num_luma_blocks, 64)).astype(np.int16)
-    batch_cb = rng.integers(-60, 60, (2, geom.num_chroma_blocks, 64)).astype(np.int16)
-    batch_cr = rng.integers(-60, 60, (2, geom.num_chroma_blocks, 64)).astype(np.int16)
-    cap = 1 << 12
-
-    def one(a, b, c):
-        return entropy.encode_scan(a, b, c, geom, cap, packer="fused_interpret")
-
-    pv, bv = jax.vmap(one)(
-        jnp.asarray(batch_y), jnp.asarray(batch_cb), jnp.asarray(batch_cr)
-    )
-    for i in range(2):
-        p1, b1 = one(
-            jnp.asarray(batch_y[i]), jnp.asarray(batch_cb[i]),
-            jnp.asarray(batch_cr[i]),
+    payload, bits = jax.jit(
+        lambda a, b, c: entropy.encode_scan(
+            a, b, c, geom, cap, init_dc=jnp.asarray(init, jnp.int32)
         )
-        assert int(bv[i]) == int(b1)
-        assert np.array_equal(np.asarray(pv[i]), np.asarray(p1))
+    )(jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr))
+    want, want_bits = oracle.entropy_encode(y, cb, cr, geom, init_dc=init)
+    assert int(bits) == want_bits
+    assert np.asarray(payload)[: (want_bits + 7) // 8].tobytes() == want
 
 
-def test_fused_kernel_fallback_assembly_identical(rng):
-    """The sequential fallback assembly (tiles denser than the matmul row
-    window) must be byte-identical to the matmul path."""
-    import jax.numpy as jnp
-
-    from jpeg_encoder_tpu.config import EncoderConfig
-    from jpeg_encoder_tpu.kernels import entropy_pallas
-
-    geom = EncoderConfig(subsampling_ratio=(4, 2, 0)).geometry(64, 32)
-    e = geom.num_scan_entries
-    z = rng.integers(-200, 200, (e, 64)).astype(np.int16)
-    z[:, 6:] = np.where(rng.random(z[:, 6:].shape) < 0.8, 0, z[:, 6:])
-    cap = 1 << 14
-    w1, b1 = entropy_pallas.encode_entropy_fused(
-        jnp.asarray(z), geom, cap, interpret=True)
-    w2, b2 = entropy_pallas.encode_entropy_fused(
-        jnp.asarray(z), geom, cap, interpret=True, force_fallback=True)
-    assert int(b1) == int(b2)
-    assert np.array_equal(np.asarray(w1), np.asarray(w2))
-
-
-@pytest.mark.parametrize("ratio", [(4, 4, 4), (4, 2, 2), (4, 2, 0)])
-def test_fused_kernel_dc_modes_identical(ratio, rng):
-    """dc_in_kernel=True (raw DC, kernel differences) and =False (XLA
-    merges precomputed diffs into slot 0) must be byte-identical — the
-    pipeline picks per ratio on emission-quality grounds only."""
-    import jax.numpy as jnp
-
-    from jpeg_encoder_tpu.config import EncoderConfig
-    from jpeg_encoder_tpu.kernels import entropy_pallas
-    from jpeg_encoder_tpu.ops import entropy
-
-    geom = EncoderConfig(subsampling_ratio=ratio).geometry(80, 48)
-    y = rng.integers(-300, 300, (geom.num_luma_blocks, 64)).astype(np.int16)
-    cb = rng.integers(-300, 300, (geom.num_chroma_blocks, 64)).astype(np.int16)
-    cr = rng.integers(-300, 300, (geom.num_chroma_blocks, 64)).astype(np.int16)
-    init = jnp.asarray([7, -3, 11], jnp.int32)
-    z, diff = entropy.marshal_scan_inputs(
-        jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr), geom, init,
-        coeffs_zigzagged=True, want_diff=True,
-    )
-    cap = 1 << 15
-    w1, b1 = entropy_pallas.encode_entropy_fused(
-        z, geom, cap, init_dc=init, interpret=True, dc_in_kernel=True)
-    w2, b2 = entropy_pallas.encode_entropy_fused(
-        z, geom, cap, interpret=True, dc_in_kernel=False, dc_diff=diff)
-    assert int(b1) == int(b2)
-    assert np.array_equal(np.asarray(w1), np.asarray(w2))
-
-
-def test_fused_kernel_runtime_fallback_trigger(rng):
-    """A dense scan must TRIP the runtime density check (rows_loc shrunk so
-    real content overflows the matmul window) and still produce the exact
-    bytes of the default path — covering the in-kernel branch select, not
-    just the force_fallback compile-time variant."""
-    import jax.numpy as jnp
-
-    from jpeg_encoder_tpu.config import EncoderConfig
-    from jpeg_encoder_tpu.kernels import entropy_pallas
-
-    geom = EncoderConfig(subsampling_ratio=(4, 2, 0)).geometry(64, 32)
-    e = geom.num_scan_entries
-    # Dense coefficients: every slot nonzero -> hundreds of bits/entry,
-    # far above the 8 * 4096 bits a rows_loc=8 window holds per tile.
-    z = rng.integers(1, 200, (e, 64)).astype(np.int16)
-    cap = 1 << 16
-    w1, b1 = entropy_pallas.encode_entropy_fused(
-        jnp.asarray(z), geom, cap, interpret=True)
-    w2, b2 = entropy_pallas.encode_entropy_fused(
-        jnp.asarray(z), geom, cap, interpret=True, rows_loc=8)
-    assert int(b1) == int(b2)
-    assert np.array_equal(np.asarray(w1), np.asarray(w2))
-
-
-@pytest.mark.parametrize("ratio", [(4, 2, 0), (4, 4, 4)])
-def test_fused_kernel_live_entries_masking(ratio, rng):
-    """live_entries (uneven MCU-band sharding) must mask the dead scan
-    suffix in the fused kernel exactly like the XLA packer: identical
-    payload/bits, and insensitive to the garbage in the dead entries."""
-    import jax.numpy as jnp
-
-    from jpeg_encoder_tpu.config import EncoderConfig
-
+@pytest.mark.parametrize("ratio", RATIOS)
+def test_xla_packer_live_entries_masking(ratio):
+    """Entries past live_entries (the trailing band's padding in uneven
+    band tiling) emit nothing, whatever their coefficients hold."""
+    rng = np.random.default_rng(9)
     geom = EncoderConfig(subsampling_ratio=ratio).geometry(48, 48)
-    y = rng.integers(-300, 300, (geom.num_luma_blocks, 64)).astype(np.int16)
-    cb = rng.integers(-80, 80, (geom.num_chroma_blocks, 64)).astype(np.int16)
-    cr = rng.integers(-80, 80, (geom.num_chroma_blocks, 64)).astype(np.int16)
-    for a in (y, cb, cr):
-        a[:, 8:] = np.where(rng.random(a[:, 8:].shape) < 0.85, 0, a[:, 8:])
-    cap = 1 << 14
-    # One full MCU row dead at the end (entries are MCU-major, so the dead
-    # suffix is exactly the last row's entries).
-    live = jnp.asarray(
-        (geom.mcu_rows - 1) * geom.mcu_cols * geom.blocks_per_mcu, jnp.int32
+    y, cb, cr = _coeffs(geom, "noise", rng)
+    live_mcus = (geom.mcu_rows - 1) * geom.mcu_cols
+    live = jnp.asarray(live_mcus * geom.blocks_per_mcu, jnp.int32)
+    cap = 1 << 15
+    fn = jax.jit(lambda a, b, c: entropy.encode_scan(
+        a, b, c, geom, cap, live_entries=live))
+    payload, bits = fn(jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr))
+    want, want_bits = oracle.entropy_encode(
+        y, cb, cr, geom, num_mcus=live_mcus
     )
-    args = (jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr), geom, cap)
-    p_xla, b_xla = entropy.encode_scan(*args, packer="xla", live_entries=live)
-    p_fused, b_fused = entropy.encode_scan(
-        *args, packer="fused_interpret", live_entries=live
-    )
-    assert int(b_xla) == int(b_fused)
-    assert np.array_equal(np.asarray(p_xla), np.asarray(p_fused))
+    assert int(bits) == want_bits
+    assert np.asarray(payload)[: (want_bits + 7) // 8].tobytes() == want
 
-    # Different garbage in the dead suffix must not change a single byte.
-    y2, cb2, cr2 = y.copy(), cb.copy(), cr.copy()
-    last_mcu_luma = geom.h_factor * geom.v_factor * geom.mcu_cols
-    y2[-last_mcu_luma:] = rng.integers(-999, 999, (last_mcu_luma, 64))
-    cb2[-geom.mcu_cols:] = rng.integers(-999, 999, (geom.mcu_cols, 64))
-    cr2[-geom.mcu_cols:] = rng.integers(-999, 999, (geom.mcu_cols, 64))
-    p3, b3 = entropy.encode_scan(
-        jnp.asarray(y2), jnp.asarray(cb2), jnp.asarray(cr2), geom, cap,
-        packer="fused_interpret", live_entries=live,
+    # Different garbage in the dead suffix changes nothing.
+    last_luma = geom.h_factor * geom.v_factor * geom.mcu_cols
+    y[-last_luma:] = rng.integers(-999, 999, (last_luma, 64))
+    cb[-geom.mcu_cols:] = rng.integers(-999, 999, (geom.mcu_cols, 64))
+    cr[-geom.mcu_cols:] = rng.integers(-999, 999, (geom.mcu_cols, 64))
+    p2, b2 = fn(jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr))
+    assert int(b2) == int(bits)
+    assert np.array_equal(np.asarray(p2), np.asarray(payload))
+
+
+def test_xla_packer_under_vmap():
+    """The batch path vmaps the encode: each batch member must equal its
+    own single encode and the oracle."""
+    rng = np.random.default_rng(13)
+    geom = EncoderConfig(subsampling_ratio=(4, 2, 0)).geometry(32, 32)
+    members = [_coeffs(geom, kind, rng) for kind in ("noise", "gradient")]
+    stacked = [jnp.asarray(np.stack([m[i] for m in members]))
+               for i in range(3)]
+    cap = 1 << 14
+    pv, bv = jax.jit(jax.vmap(
+        lambda a, b, c: entropy.encode_scan(a, b, c, geom, cap)
+    ))(*stacked)
+    for i, (y, cb, cr) in enumerate(members):
+        want, want_bits = oracle.entropy_encode(y, cb, cr, geom)
+        assert int(bv[i]) == want_bits
+        assert np.asarray(pv[i])[: (want_bits + 7) // 8].tobytes() == want
+
+
+def test_xla_packer_custom_luts_match_pack_bits(monkeypatch):
+    """Per-image tables with 1-bit codes (2-bit entries, so up to 16
+    entries start inside one output word): the widened assembly must pack
+    exactly what the scatter-add reference pack_bits packs, and the
+    stream must be the oracle's under the same tables."""
+    from jpeg_encoder_tpu import pipeline
+
+    geom = EncoderConfig(subsampling_ratio=(4, 2, 0)).geometry(64, 48)
+    y, cb, cr = _coeffs(geom, "flat", np.random.default_rng(0))
+    y[::7, 1] = 3  # a few other symbols beside the dominant DC-0 / EOB
+    hist = np.asarray(entropy.symbol_histograms(
+        jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr), geom
+    ))
+    specs, dc_lut, ac_lut = pipeline.optimal_specs_and_luts(hist)
+    assert int(specs[2].length_lut[0x00]) == 1  # 1-bit luma EOB
+
+    seen = {}
+    real_pack = entropy.pack_entries
+
+    def recording_pack(slot_bits, slot_lens, capacity, candidates):
+        seen.update(bits=slot_bits, lens=slot_lens, candidates=candidates)
+        return real_pack(slot_bits, slot_lens, capacity, candidates)
+
+    monkeypatch.setattr(entropy, "pack_entries", recording_pack)
+    cap = 1 << 12
+    payload, bits = entropy.encode_scan(
+        jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr), geom, cap,
+        luts=(dc_lut, ac_lut),
     )
-    assert int(b3) == int(b_fused)
-    assert np.array_equal(np.asarray(p3), np.asarray(p_fused))
+    assert seen["candidates"] == entropy.ASSEMBLE_CANDIDATES_CUSTOM
+    ref, ref_bits = entropy.pack_bits(
+        seen["bits"].reshape(-1), seen["lens"].reshape(-1), cap
+    )
+    assert int(ref_bits) == int(bits)
+    assert np.array_equal(np.asarray(ref), np.asarray(payload))
+    want, want_bits = oracle.entropy_encode(y, cb, cr, geom, specs=specs)
+    assert int(bits) == want_bits
+    assert np.asarray(payload)[: (want_bits + 7) // 8].tobytes() == want

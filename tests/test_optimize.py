@@ -56,28 +56,13 @@ def test_optimized_bitstream_matches_oracle_with_same_specs():
     specs, _, _ = pipeline.optimal_specs_and_luts(hist)
 
     ref = oracle.encode_oracle(rgb, cfg)
-    zz = tables.ZIGZAG_ORDER
-    writer = oracle.BitWriter()
-    y_zz = ref.y_coeffs.reshape(-1, 64)[:, zz]
-    cb_zz = ref.cb_coeffs.reshape(-1, 64)[:, zz]
-    cr_zz = ref.cr_coeffs.reshape(-1, 64)[:, zz]
-    order = oracle.luma_scan_order(ref.geom)
-    prev = {"y": 0, "cb": 0, "cr": 0}
-    for mcu in range(ref.geom.num_mcus):
-        for bi in order[mcu]:
-            prev["y"] = oracle.encode_block(
-                y_zz[bi], prev["y"], specs[0], specs[2], writer
-            )
-        prev["cb"] = oracle.encode_block(
-            cb_zz[mcu], prev["cb"], specs[1], specs[3], writer
-        )
-        prev["cr"] = oracle.encode_block(
-            cr_zz[mcu], prev["cr"], specs[1], specs[3], writer
-        )
-    assert opt.bit_length == writer.bit_length
-    assert opt.entropy_payload == writer.to_bytes()
+    payload, bit_length = oracle.entropy_encode(
+        ref.y_coeffs, ref.cb_coeffs, ref.cr_coeffs, ref.geom, specs=specs
+    )
+    assert opt.bit_length == bit_length
+    assert opt.entropy_payload == payload
     assert opt.file_bytes == jfif.assemble(
-        ref.geom, writer.to_bytes(), dht_specs=specs
+        ref.geom, payload, dht_specs=specs
     )
 
 
@@ -188,77 +173,13 @@ def test_cli_optimize_flag(tmp_path):
     assert opt.stat().st_size < plain.stat().st_size
 
 
-def test_custom_luts_fused_kernel_matches_xla_packer():
-    """Per-image optimized tables through the FUSED entropy kernel
-    (traced LUT operands, DC stuffing rebuilt in XLA) must be
-    byte-identical to the XLA symbolization+packer, on both the
-    homogeneous-pair (4:2:0) and mixed-pair (4:4:4) gather paths."""
-    import jax.numpy as jnp
-
-    from jpeg_encoder_tpu.ops import entropy
-
-    rgb = corpus.landscape(48, 64)
-    for ratio in ((4, 2, 0), (4, 4, 4)):
-        cfg = EncoderConfig(subsampling_ratio=ratio)
-        geom = cfg.geometry(64, 48)
-        _, coeffs = pipeline.encode_array(rgb, cfg, return_coeffs=True)
-        y, cb, cr = (jnp.asarray(c) for c in coeffs)
-        hist = np.asarray(pipeline.compiled_stats_encoder(
-            geom, cfg.dct_algorithm
-        )(jnp.asarray(rgb)))
-        _, dc_lut, ac_lut = pipeline.optimal_specs_and_luts(hist)
-        cap = 16384
-        px, bx = entropy.encode_scan(
-            y, cb, cr, geom, cap, packer="xla", luts=(dc_lut, ac_lut)
-        )
-        pf, bf = entropy.encode_scan(
-            y, cb, cr, geom, cap, packer="fused_interpret",
-            luts=(dc_lut, ac_lut),
-        )
-        assert int(bx) == int(bf), ratio
-        nb = (int(bx) + 7) // 8
-        assert np.array_equal(np.asarray(px[:nb]), np.asarray(pf[:nb])), ratio
-
-
-@pytest.mark.slow
-def test_custom_luts_fused_restart_matches_xla():
-    import jax.numpy as jnp
-
-    from jpeg_encoder_tpu.ops import entropy
-
-    rgb = corpus.portrait(48, 64)
-    cfg = EncoderConfig(restart_interval=3)
-    geom = cfg.geometry(64, 48)
-    base = EncoderConfig()
-    _, coeffs = pipeline.encode_array(rgb, base, return_coeffs=True)
-    y, cb, cr = (jnp.asarray(c) for c in coeffs)
-    hist = np.asarray(pipeline.compiled_stats_encoder(
-        geom, cfg.dct_algorithm, restart_mcus=3
-    )(jnp.asarray(rgb)))
-    _, dc_lut, ac_lut = pipeline.optimal_specs_and_luts(hist)
-    cap = 16384
-    px, bx = entropy.encode_scan_restart(
-        y, cb, cr, geom, cap, 3, packer="xla", luts=(dc_lut, ac_lut)
-    )
-    pf, bf = entropy.encode_scan_restart(
-        y, cb, cr, geom, cap, 3, packer="fused_interpret",
-        luts=(dc_lut, ac_lut),
-    )
-    assert np.array_equal(np.asarray(bx), np.asarray(bf))
-    for j in range(np.asarray(bx).size):
-        nb = (int(np.asarray(bx)[j]) + 7) // 8
-        assert np.array_equal(
-            np.asarray(px[j, :nb]), np.asarray(pf[j, :nb])
-        ), j
-
-
 def test_optimized_batch_chunked_matches_single(monkeypatch):
     """Batched optimize across several chunks (forced tiny), including
     padding rows, must reproduce the single-image optimized encodes."""
     from jpeg_encoder_tpu.parallel import batch as batch_lib
     from jpeg_encoder_tpu.parallel import mesh as mesh_lib
 
-    monkeypatch.setattr(batch_lib, "CHUNK_INPUT_BUDGET", 48 * 64 * 3)
+    monkeypatch.setattr(batch_lib, "chunk_input_budget", lambda: 48 * 64 * 3)
     images = np.stack(
         [corpus.landscape(48, 64, seed=s) for s in (7, 8, 9)]
     )

@@ -285,7 +285,7 @@ def test_chunk_size_images_bounds():
     per_dev = n // 8
     assert 1 <= per_dev <= batch.MAX_IMAGES_PER_DEVICE
     if per_dev > 1:
-        assert per_dev * 3840 * 2160 * 3 <= batch.CHUNK_INPUT_BUDGET
+        assert per_dev * 3840 * 2160 * 3 <= batch.chunk_input_budget()
     # Tiny geometry: the image-count cap applies, not the byte budget.
     tiny = cfg.geometry(16, 16)
     assert batch.chunk_size_images(tiny, 8) == 8 * batch.MAX_IMAGES_PER_DEVICE
@@ -294,7 +294,7 @@ def test_chunk_size_images_bounds():
 def test_batch_encode_chunked_dispatch_matches_single(mesh8, rng, monkeypatch):
     """With the chunk cap forced tiny, a 10-image batch runs as several
     bounded dispatches and still reproduces the per-image encodes."""
-    monkeypatch.setattr(batch, "CHUNK_INPUT_BUDGET", 24 * 32 * 3)  # 1/dev
+    monkeypatch.setattr(batch, "chunk_input_budget", lambda: 24 * 32 * 3)  # 1/dev
     dispatches = []
     real_dispatch = batch.dispatch_chunk
 
@@ -335,7 +335,7 @@ def test_stream_encode_paths_matches_single(tmp_path, rng, monkeypatch):
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     mesh = mesh_lib.data_mesh(8)
-    monkeypatch.setattr(batch, "CHUNK_INPUT_BUDGET", 24 * 32 * 3)
+    monkeypatch.setattr(batch, "chunk_input_budget", lambda: 24 * 32 * 3)
     paths = []
     expected = {}
     config = EncoderConfig(subsampling_ratio=(4, 2, 0))
@@ -390,7 +390,7 @@ def test_stream_encode_paths_restart_and_optimize(tmp_path, rng, monkeypatch):
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     mesh = mesh_lib.data_mesh(2)
-    monkeypatch.setattr(batch, "CHUNK_INPUT_BUDGET", 32 * 48 * 3)
+    monkeypatch.setattr(batch, "chunk_input_budget", lambda: 32 * 48 * 3)
     paths = []
     rgbs = {}
     for i in range(4):

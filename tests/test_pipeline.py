@@ -76,18 +76,15 @@ def _decode_psnr(rgb, file_bytes):
 
 
 def test_fast_dct_pipeline_decodes_and_matches_exact_quality():
-    """--fast-dct through the transposed Pallas kernel (the TPU routing;
-    interpret mode here) must produce a valid decodable file whose quality
-    matches the exact ordered-chain encode — the mode trades bit-exactness
-    vs the reference for MXU speed, not visible quality."""
+    """--fast-dct (the matmul RealDCT) must produce a valid decodable
+    file whose quality matches the exact ordered-chain encode — the mode
+    trades bit-exactness vs the reference for speed, not visible
+    quality."""
     rgb = _gradient_image(64, 48)
     exact = pipeline.encode_array(rgb, EncoderConfig())
-    for transposed in (True, False):  # Pallas kernel / XLA matmul fallback
-        fast = pipeline.encode_array(
-            rgb, EncoderConfig(fast_dct=True, transposed_dct=transposed)
-        )
-        assert abs(_decode_psnr(rgb, fast.file_bytes)
-                   - _decode_psnr(rgb, exact.file_bytes)) < 0.5
+    fast = pipeline.encode_array(rgb, EncoderConfig(fast_dct=True))
+    assert abs(_decode_psnr(rgb, fast.file_bytes)
+               - _decode_psnr(rgb, exact.file_bytes)) < 0.5
 
 
 @pytest.mark.slow
@@ -253,22 +250,6 @@ def test_validate_scan_ranges_raises_like_reference():
     with pytest.raises(ValueError, match="AC coefficient bit length"):
         pipeline.validate_scan_ranges(0, 1 << 10)
     pipeline.validate_scan_ranges((1 << 11) - 1, (1 << 10) - 1)
-
-
-def test_default_packer_selection(monkeypatch):
-    """Fused kernel on TPU within its VMEM budget; XLA everywhere else."""
-    import jax
-
-    from jpeg_encoder_tpu.kernels import entropy_pallas
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert pipeline.default_packer(1 << 20) == "fused"
-    assert pipeline.default_packer(entropy_pallas.MAX_VMEM_CAPACITY) == "fused"
-    assert (
-        pipeline.default_packer(entropy_pallas.MAX_VMEM_CAPACITY + 4) == "xla"
-    )
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    assert pipeline.default_packer(1 << 20) == "xla"
 
 
 @pytest.mark.parametrize("seed", [11, 12, 13])

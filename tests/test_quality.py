@@ -143,24 +143,6 @@ def test_batch_and_tiled_quality_match_single(rng):
     assert tiled_res.file_bytes == singles[0]
 
 
-@pytest.mark.slow
-def test_pallas_dct_quality_parity(rng):
-    """The Pallas DCT kernels bake the scaled tables into their constants;
-    the legacy per-plane verification kernel must match the production
-    path's coefficients bit-for-bit at any quality."""
-    from jpeg_encoder_tpu.kernels import dct_pallas
-
-    blocks = rng.integers(0, 256, size=(70, 64), dtype=np.uint8)
-    for is_luma in (True, False):
-        legacy = np.asarray(dct_pallas.real_dct_quant_zigzag_pallas(
-            blocks, is_luma, interpret=True, quality=35
-        ))
-        prod = np.asarray(dct_pallas.real_dct_quant_zigzag_pallas_t(
-            blocks, is_luma, interpret=True, quality=35
-        ))
-        assert np.array_equal(legacy, prod)
-
-
 def test_cli_quality_flag(tmp_path, rng):
     from jpeg_encoder_tpu import cli
     from jpeg_encoder_tpu.io import bmp

@@ -18,7 +18,6 @@ from PIL import Image
 
 from jpeg_encoder_tpu import pipeline
 from jpeg_encoder_tpu.config import EncoderConfig
-from jpeg_encoder_tpu.ops import entropy
 
 
 def _image(h=75, w=99, seed=3):
@@ -209,30 +208,6 @@ def test_restart_tiled_alignment_matrix():
                 fallbacks += 1
             assert out.file_bytes == single.file_bytes, (n_dev, interval)
     assert fallbacks >= 1  # the matrix must exercise the no-split branch
-
-
-@pytest.mark.slow
-def test_restart_fused_interpret_matches_xla():
-    """Per-interval byte identity between the fused kernel and the XLA
-    symbolization (the packer matrix the unbroken scan already pins)."""
-    rgb = _image(40, 56, seed=5)
-    cfg = EncoderConfig(subsampling_ratio=(4, 2, 0))
-    geom = cfg.geometry(56, 40)
-    _, coeffs = pipeline.encode_array(rgb, cfg, return_coeffs=True)
-    y, cb, cr = (np.asarray(c) for c in coeffs)
-    cap = 16384
-    for interval in (1, 2):
-        ref_p, ref_b = entropy.encode_scan_restart(
-            y, cb, cr, geom, cap, interval, packer="xla"
-        )
-        fus_p, fus_b = entropy.encode_scan_restart(
-            y, cb, cr, geom, cap, interval, packer="fused_interpret"
-        )
-        np.testing.assert_array_equal(np.asarray(ref_b), np.asarray(fus_b))
-        ref_p, fus_p = np.asarray(ref_p), np.asarray(fus_p)
-        for i, b in enumerate(np.asarray(ref_b)):
-            n = (int(b) + 7) // 8
-            np.testing.assert_array_equal(ref_p[i, :n], fus_p[i, :n])
 
 
 def test_restart_capacity_retry_ladder():

@@ -7,22 +7,23 @@ methodology.
 
 `optimize` measures the BATCHED two-pass optimized-Huffman mode: per
 iteration, the device stats pass + host table build + the vmapped-LUT
-encode pass (the fused kernel with traced tables). Reported both as the
+encode pass (with traced tables). Reported both as the
 full two-pass cost (what --optimize-huffman pays) and the encode pass
 alone (comparable to the fixed-table cell).
 
 Same methodology as tools/bench_matrix.py (payloads materialized,
 enqueue-K + scalar fetch), one (ratio, algorithm) configuration only —
-for quick A/B iteration on kernel changes.
+for quick A/B iteration on changes to the encode program.
 """
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-import jax
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from jpeg_encoder_tpu.utils import compile_cache  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+compile_cache.enable()
+import jax  # noqa: E402
 import jax.numpy as jnp
 import numpy as np
 
@@ -123,8 +124,8 @@ if optimize:
         np.asarray(bits).max()
         return time.perf_counter() - t0
 
-    # Encode pass alone (tables prebuilt): the fused-kernel cell
-    # comparable to the fixed-table measurement.
+    # Encode pass alone (tables prebuilt): the cell comparable to the
+    # fixed-table measurement.
     hists0 = np.asarray(stats_enc(images))
     dc0, ac0 = build_luts(hists0)
 

@@ -29,13 +29,11 @@ import time
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO)
 
-import jax
-import numpy as np
+from jpeg_encoder_tpu.utils import compile_cache  # noqa: E402
 
-jax.config.update(
-    "jax_compilation_cache_dir", os.path.join(_REPO, ".jax_cache")
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+compile_cache.enable()
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
 
 
 def main():
@@ -56,7 +54,7 @@ def main():
     if args.chunk_budget:
         from jpeg_encoder_tpu.parallel import batch as batch_lib
 
-        batch_lib.CHUNK_INPUT_BUDGET = args.chunk_budget
+        batch_lib.chunk_input_budget = lambda: args.chunk_budget
 
     from jpeg_encoder_tpu import pipeline
     from jpeg_encoder_tpu.config import EncoderConfig, parse_subsampling_ratio

@@ -1,23 +1,24 @@
 """Tiled (MCU-band) encode throughput on hardware: one 4K image.
 
 Times the jitted band-sharded program (parallel/tiled.compiled_tiled_encoder)
-on a 1-device mesh — the only mesh this 1-chip environment can run — against
-the plain single-image program (pipeline.encode_core) on the same
-device-resident 4K input, with bench.py's enqueue-K + scalar-fetch
-discipline. This records what the tiled MODE costs on hardware (its program
-structure: shard_map, ppermute DC exchange, per-band capacity), separate
-from the virtual-mesh correctness tests.
+on a 1-device mesh against the plain single-image program
+(pipeline.encode_core) on the same device-resident 4K input (enqueue K
+encodes, then fetch one scalar of the last). This records what the tiled
+MODE costs on hardware (its program structure: shard_map, ppermute DC
+exchange, per-band capacity), separate from the virtual-mesh correctness
+tests.
 
     python tools/bench_tiled.py [height width]
 """
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-import jax
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from jpeg_encoder_tpu.utils import compile_cache  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+compile_cache.enable()
+import jax  # noqa: E402
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh

@@ -1,7 +1,7 @@
 """Decoded-PSNR + compression-ratio table over the photographic corpus.
 
-Produces the BASELINE.md evidence for the "PSNR >= Rust reference on
-Kodak" target analog: since output files are byte-identical to the
+Evidence for the "PSNR >= Rust reference on Kodak" target analog
+(BASELINE.json): since output files are byte-identical to the
 reference semantics (the real guarantee), this table makes the claim
 concrete on photographic-statistics content — per image x subsampling
 ratio x DCT algorithm, with PIL as the independent decoder.
@@ -19,8 +19,9 @@ import jax
 
 if "--cpu" in sys.argv:
     jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", ".jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from jpeg_encoder_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 import numpy as np
 from PIL import Image
